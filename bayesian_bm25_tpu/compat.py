@@ -74,7 +74,7 @@ def install(force: bool = False) -> None:
         if not force:
             raise RuntimeError(
                 "a real 'bayesian_bm25' module is already imported; pass "
-                "force=True to shadow it with the TPU implementation")
+                "force=True to shadow it with this implementation")
     elif existing is None and not force:
         import importlib.util
 
@@ -86,7 +86,7 @@ def install(force: bool = False) -> None:
         if spec is not None:
             raise RuntimeError(
                 "a real 'bayesian_bm25' package is installed; pass "
-                "force=True to shadow it with the TPU implementation")
+                "force=True to shadow it with this implementation")
 
     import bayesian_bm25_tpu as root
 

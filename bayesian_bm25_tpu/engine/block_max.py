@@ -111,7 +111,7 @@ class BlockMaxIndex:
             raise RuntimeError("Call build() before accessing block_maxes.")
         return self._block_maxes
 
-    # -- vectorized pruning (TPU-native extensions) -------------------------
+    # -- vectorized pruning (extensions) -------------------------------------
 
     def query_block_upper_bounds(self, term_indices, transform,
                                  p_max: float = 0.9) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Host-side index build -> device-resident doc-major BM25 index.
 
-Design (TPU-first, not a port of bm25s): instead of a term-major CSR whose
+Design (accelerator-first, not a port of bm25s): instead of a term-major CSR whose
 ragged postings force gathers/scatters, the device index is a *doc-major
 padded term table*:
 
@@ -10,7 +10,7 @@ padded term table*:
                that (doc, term) pair — idf(t) * tf_saturation(tf, dl)
 
 Scoring a query is then a dense, static-shape comparison-accumulate over
-(n_docs, T) — ideal VPU work with zero dynamic indexing — and the same pass
+(n_docs, T) — elementwise work with zero dynamic indexing — and the same pass
 counts |query_set ∩ doc_set| (the reference's "tf" prior feature,
 scorer.py:592-601). Block-max metadata for WAND/BMW pruning is a segment-max
 over doc blocks of the same table.
@@ -97,7 +97,7 @@ def _round_up(x: int, m: int) -> int:
 class BM25Index:
     """Device-resident BM25 index + host-side vocabulary.
 
-    Arrays live on the default device (HBM on TPU). ``vocab`` maps token ->
+    Arrays live on the default device (its HBM on a GPU). ``vocab`` maps token ->
     term id; term ids are dense [0, n_terms).
     """
 
@@ -209,7 +209,7 @@ def build_index(
     method: str = "robertson",
     vocab: dict | None = None,
     pad_multiple: int = 128,
-    doc_pad_multiple: int = 2048,  # = pallas_bm25.DOC_BLOCK
+    doc_pad_multiple: int = 2048,
     csr=None,
     score_scale: str = "classic",
     delta: float = DEFAULT_DELTA,
@@ -273,7 +273,7 @@ def build_index(
     max_terms = int(per_doc_terms.max()) if n_docs else 1
     T = max(_round_up(max(max_terms, 1), pad_multiple), pad_multiple)
 
-    # Pad the doc axis to the Pallas doc-block multiple; pad rows have no
+    # Pad the doc axis to the doc-block multiple; pad rows have no
     # terms (never match) and doc_length = avgdl (harmless: their score is 0
     # so downstream probability is 0 and they can't enter top-k above a real
     # match).

@@ -1,6 +1,6 @@
-"""IVF cosine index: Lloyd k-means on the MXU + multi-probe search.
+"""IVF cosine index: Lloyd k-means as matmuls + multi-probe search.
 
-TPU-native counterpart of the reference's benchmark-local SimpleIVF
+Device counterpart of the reference's benchmark-local SimpleIVF
 (benchmarks/simple_ivf.py): the k-means assignment/update steps run as one
 jitted fori_loop of (n_docs, dim) @ (dim, n_cells) matmuls + segment sums —
 the whole build is device work — while the ragged per-query candidate
@@ -242,8 +242,8 @@ class SimpleIVF:
     def search_batch(self, queries, k: int, *, nprobe: int | None = None):
         """Batched exact-over-probed-cells device path: (nq, k) ids+scores.
 
-        TPU-native extension: scores every query against the full corpus in
-        one (nq, dim) @ (dim, n_docs) MXU matmul, masks docs outside the
+        Extension: scores every query against the full corpus in
+        one (nq, dim) @ (dim, n_docs) matmul, masks docs outside the
         probed cells, and lax.top_k's — fixed shapes, no ragged gathers.
         """
         qs = _l2_normalize_rows(np.asarray(queries, dtype=np.float32))
@@ -263,7 +263,7 @@ def _ivf_batch_search(emb, centroids, assignments, queries, k: int,
     cscores = queries @ centroids.T                        # (nq, n_cells)
     _, probed = jax.lax.top_k(cscores, nprobe)             # (nq, nprobe)
     in_probe = (assignments[None, :, None] == probed[:, None, :]).any(-1)
-    dscores = queries @ emb.T                              # (nq, n_docs) MXU
+    dscores = queries @ emb.T                              # (nq, n_docs)
     masked = jnp.where(in_probe, dscores, -jnp.inf)
     top_s, top_i = jax.lax.top_k(masked, k)
     return top_i, top_s

@@ -1,7 +1,8 @@
 """ctypes bindings for the C++ host-side hot loops (native/bb25_native.cpp).
 
-Builds the shared library on first use with g++ (cached next to the
-package) and exposes:
+Builds the shared library on first use with g++ into ``<checkout>/build/``
+(gitignored), under a file name keyed by a hash of the source text and the
+compiler command, and exposes:
 
   * ``tokenize_texts_native`` — batch tokenization (strings out)
   * ``build_corpus_native``   — tokenize + vocab + per-doc term counts in
@@ -15,6 +16,7 @@ unavailable.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -36,9 +38,10 @@ def _encode_threads() -> int:
 _LIB = None
 _LOCK = threading.Lock()
 
-_SRC = os.path.join(os.path.dirname(__file__), "..", "..", "native",
-                    "bb25_native.cpp")
-_SO = os.path.join(os.path.dirname(__file__), "_bb25_native.so")
+_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+_SRC = os.path.join(_ROOT, "native", "bb25_native.cpp")
+_BUILD_DIR = os.path.join(_ROOT, "build")
+_CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
 class _TokenizeResult(ctypes.Structure):
@@ -65,20 +68,41 @@ class _CorpusResult(ctypes.Structure):
     ]
 
 
-def _build_library() -> str:
-    src = os.path.abspath(_SRC)
+def library_path(src: str = _SRC, build_dir: str = _BUILD_DIR,
+                 flags: tuple = _CXX_FLAGS) -> str:
+    """Where the library built from ``src`` with ``flags`` lives: the
+    name carries a hash of both, so a library built from another source
+    or with other flags (or copied from another machine under the old
+    name) is never loaded."""
+    with open(src, "rb") as f:
+        text = f.read()
+    h = hashlib.sha256(text + b"\0" + " ".join(flags).encode())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(build_dir, f"{stem}-{h.hexdigest()[:16]}.so")
+
+
+def _build_library(src: str = _SRC, build_dir: str = _BUILD_DIR,
+                   flags: tuple = _CXX_FLAGS) -> str:
     if not os.path.exists(src):
         raise ImportError(f"native source not found: {src}")
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(src):
-        return _SO
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-           src, "-o", _SO]
+    so = library_path(src, build_dir, flags)
+    if os.path.exists(so):
+        return so
+    os.makedirs(build_dir, exist_ok=True)
+    # Build beside the target, then rename: concurrent builders (test
+    # workers) never see a half-written library.
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = ["g++", *flags, src, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
+        os.replace(tmp, so)
     except (subprocess.CalledProcessError, FileNotFoundError) as exc:
         detail = getattr(exc, "stderr", str(exc))
         raise ImportError(f"failed to build native library: {detail}") from exc
-    return _SO
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return so
 
 
 class _EncodeResult(ctypes.Structure):

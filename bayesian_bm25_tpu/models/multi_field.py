@@ -187,7 +187,7 @@ class MultiFieldScorer:
     def get_probabilities_batch(self, query_tokens_batch: list) -> np.ndarray:
         """Fused probabilities for a query batch: (nq, num_docs).
 
-        TPU-native extension: one batched device pass per field, one fusion
+        Extension: one batched device pass per field, one fusion
         op — keeps the chip busy instead of a per-query loop.
         """
         if not self._scorers:

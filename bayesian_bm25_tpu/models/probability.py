@@ -4,7 +4,7 @@ API-parity wrappers over the pure kernels in ``ops.transform``
 (reference: bayesian_bm25/probability.py:51-667). State is a handful of
 Python floats — pickle/deepcopy friendly by construction — and every
 compute path dispatches to a jitted kernel, so the same objects work on
-CPU (f64 parity) and TPU (f32).
+CPU (f64 parity) and the GPU (f32).
 """
 
 from __future__ import annotations

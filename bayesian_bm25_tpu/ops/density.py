@@ -3,7 +3,7 @@ detection.
 
 Pure jnp implementations of the reference's vector-calibration math
 (bayesian_bm25/vector_probability.py:36-115, :191-431). The KDE evaluates
-one dense (n_eval, n_sample) kernel matrix — ideal TPU work — and the GMM
+one dense (n_eval, n_sample) kernel matrix — ideal accelerator work — and the GMM
 EM runs as a lax.while_loop with the background component fixed
 (Remark 5.3.2 semantics).
 """

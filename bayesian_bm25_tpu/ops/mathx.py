@@ -3,7 +3,7 @@
 Reference semantics: bayesian_bm25/probability.py:20-48 (epsilon clamp,
 split-form sigmoid, logit). The reference is float64-only; this module is
 dtype-neutral so the same kernels run in f64 for CPU parity tests and f32
-on TPU. The clamp epsilon is dtype-aware: 1e-10 is sub-resolution next to
+on the GPU. The clamp epsilon is dtype-aware: 1e-10 is sub-resolution next to
 1.0 in float32 (1 - 1e-10 rounds to 1.0), so f32 uses 1e-6.
 """
 
@@ -85,7 +85,7 @@ def segment_min_max_normalize(
 ) -> jnp.ndarray:
     """Per-segment min-max normalization along axis 0 (per-query groups).
 
-    TPU-native replacement for the reference's per-query-id Python loop
+    Vectorized replacement for the reference's per-query-id Python loop
     (fusion.py:879-887): one segment_min/segment_max pass instead of a loop
     over unique ids, so it stays O(n) and jit-compatible.
     """

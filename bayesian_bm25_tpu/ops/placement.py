@@ -1,12 +1,13 @@
-"""Device placement policy: hot path on TPU, fit-time math on host CPU.
+"""Device placement policy: hot path on the accelerator, fit-time math on
+the host CPU.
 
 Batched scoring/retrieval kernels run on the accelerator. Small fit-time
 work — per-query KDE/GMM calibration, GD fit loops, online updates — has
-data-dependent shapes, and each new shape would trigger a fresh (remote)
-TPU compilation that dwarfs the compute. Those call sites wrap themselves
-in ``host_context()``: when a CPU device coexists with the accelerator the
-computation compiles and runs locally in milliseconds; on a CPU-only
-backend it is a no-op.
+data-dependent shapes, and each new shape triggers a fresh accelerator
+compilation that can dwarf the compute. Those call sites wrap themselves
+in ``host_context()``: when a CPU device coexists with the accelerator
+the computation compiles and runs on the host; on a CPU-only backend it
+is a no-op. Whether this still pays on the GPU is not yet measured.
 """
 
 from __future__ import annotations

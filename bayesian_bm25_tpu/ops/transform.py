@@ -3,7 +3,7 @@
 Implements the sigmoid-likelihood x composite-prior x posterior pipeline of
 the reference ``BayesianProbabilityTransform`` (bayesian_bm25/probability.py:
 51-473) as pure functions over jnp arrays, so the whole pipeline fuses into
-the BM25 scoring kernel on TPU. Stateful wrapper: models/probability.py.
+the BM25 scoring kernel on the device. Stateful wrapper: models/probability.py.
 
 Numeric contract (reference probability.py / SURVEY §2.4):
   likelihood      L = sigma(alpha * (s - beta))                   (:106-108)
@@ -54,17 +54,27 @@ def composite_prior(tf, doc_len_ratio) -> jnp.ndarray:
     return jnp.clip(0.7 * tf_prior(tf) + 0.3 * norm_prior(doc_len_ratio), 0.1, 0.9)
 
 
-def posterior(likelihood_val, prior, base_rate=None) -> jnp.ndarray:
+def posterior(likelihood_val, prior, base_rate=None,
+              likelihood_complement=None) -> jnp.ndarray:
     """Two-step Bayes odds update, equivalent to
-    sigma(logit L + logit prior [+ logit base_rate])."""
+    sigma(logit L + logit prior [+ logit base_rate]).
+
+    Each step carries the complement 1 - q as its own quotient instead of
+    subtracting q from 1, so f32 keeps its relative precision as q nears
+    1; ``likelihood_complement`` (1 - L, e.g. sigma(-x)) does the same for
+    the likelihood. Equal to the plain odds update in exact arithmetic,
+    clamps included."""
     l_val = as_float(likelihood_val)
+    l_c = (1.0 - l_val if likelihood_complement is None
+           else as_float(likelihood_complement))
     p = as_float(prior)
-    num = l_val * p
-    out = clamp_probability(num / (num + (1.0 - l_val) * (1.0 - p)))
+    num, num_c = l_val * p, l_c * (1.0 - p)
+    den = num + num_c
+    out, out_c = clamp_probability(num / den), clamp_probability(num_c / den)
     if base_rate is not None:
         br = as_float(base_rate)
-        num_br = out * br
-        out = clamp_probability(num_br / (num_br + (1.0 - out) * (1.0 - br)))
+        num, num_c = out * br, out_c * (1.0 - br)
+        out = clamp_probability(num / (num + num_c))
     return out
 
 
@@ -85,14 +95,15 @@ def score_to_probability(
     ``prior`` overrides the composite prior with precomputed values (the
     custom ``prior_fn`` path is evaluated by the caller, host-side).
     """
-    l_val = likelihood(score, alpha, beta)
+    x = as_float(alpha) * (as_float(score) - as_float(beta))
+    l_val, l_c = sigmoid(x), sigmoid(-x)
     if prior_free:
         p = jnp.asarray(0.5, dtype=l_val.dtype)
     elif prior is not None:
         p = clamp_probability(prior)
     else:
         p = composite_prior(tf, doc_len_ratio)
-    return posterior(l_val, p, base_rate=base_rate)
+    return posterior(l_val, p, base_rate=base_rate, likelihood_complement=l_c)
 
 
 def wand_upper_bound(bm25_upper_bound, alpha, beta, base_rate=None, p_max=0.9):

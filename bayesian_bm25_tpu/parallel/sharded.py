@@ -5,8 +5,8 @@ Design (SURVEY §7.8): mesh over the document axis ('d'); the term table
 Scoring is embarrassingly parallel over docs. Retrieval does a per-shard
 lax.top_k (k candidates per shard), converts local row ids to global doc
 ids with the shard offset, then all_gathers the (n_shards * k) candidate
-set and reduces to the global top-k — k*n_shards values cross ICI instead
-of the full (nq, D) score matrix. Corpus statistics (N, sum doclen, df)
+set and reduces to the global top-k — k*n_shards values cross the
+interconnect instead of the full (nq, D) score matrix. Corpus statistics (N, sum doclen, df)
 and fit() gradients aggregate with psum.
 """
 
@@ -27,11 +27,10 @@ from bayesian_bm25_tpu.ops.mathx import clamp_probability, sigmoid
 
 
 def _leader_topk(scores, k: int):
-    """Per-shard exact leader selection: blockwise (Pallas block-max
-    when shapes allow) on 256-aligned local widths, ``lax.top_k``
-    otherwise. Bit-identical to ``lax.top_k`` including tie order, so
-    single-chip/sharded equality is preserved; masked (-inf) scores
-    pass through unchanged."""
+    """Per-shard exact leader selection: blockwise on 256-aligned local
+    widths, ``lax.top_k`` otherwise. Bit-identical to ``lax.top_k``
+    including tie order, so single-chip/sharded equality is preserved;
+    masked (-inf) scores pass through unchanged."""
     d_local = scores.shape[1]
     if d_local % 256 == 0 and k < d_local // 256:
         from bayesian_bm25_tpu.engine.split_index import (
@@ -436,7 +435,7 @@ def sharded_retrieve_topk_split_sparse(
         tailH_rows=None, tailH_slots=None, tailH_qcnt=None,
         cand_capH: int = 0, compactH=None, compactH_rmax: int = 0):
     """Distributed sparse-candidate exact top-k (the fastest single-chip
-    kernel, doc-sharded): per shard, one MXU matmul + local leader
+    kernel, doc-sharded): per shard, one matmul + local leader
     selection + rare-postings merge against the SHARD-LOCAL postings
     (engine/split_index.py:build_sharded_postings — postings shard
     naturally by doc range), then an all_gather of each shard's k
@@ -451,8 +450,8 @@ def sharded_retrieve_topk_split_sparse(
     stays exact). Ref intent: scorer.py:525-529 retrieve parity.
 
     Merge-cost model: each query ships local_k candidates x 16 bytes
-    (score, id, tf, dl) per shard over ICI — k*n_shards*16 B/query at
-    the exact default, independent of corpus size. ``local_k`` < k is a
+    (score, id, tf, dl) per shard between devices — k*n_shards*16
+    B/query at the exact default, independent of corpus size. ``local_k`` < k is a
     recall trade for very large k protocols (e.g. the reference's
     R=1000 candidate unions, hybrid_beir.py:1747): per-shard candidate
     lists shrink to local_k and the merge reduces from k*n_shards to
@@ -463,7 +462,7 @@ def sharded_retrieve_topk_split_sparse(
     The compiled program is cached per (mesh, static config): transform
     scalars travel as operands, so repeated serving calls re-dispatch
     the same executable instead of re-tracing (a per-call body closure
-    was measured recompiling EVERY retrieve on the scaling study).
+    recompiled EVERY retrieve).
 
     Width-capped indexes (tier-2 rectangle active) run the SAME
     two-pass merge as the single-chip kernel: group-B rows (those
@@ -984,7 +983,7 @@ def sharded_train_step_split(mesh: Mesh, dense_impact, dense_presence,
     """sharded_train_step on the frequency-split scoring path.
 
     Same psum'd-BCE GD step, but the per-shard scores come from the
-    production split kernel (MXU matmul + tail compare) instead of the
+    production split kernel (matmul + tail compare) instead of the
     doc-major compare sweep — the training step then exercises exactly
     the kernels that serve. ``labels`` is (nq, D_pad) sharded over 'd'
     along axis 1, matching the score layout.

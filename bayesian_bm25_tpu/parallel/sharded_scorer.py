@@ -3,7 +3,7 @@
 User-facing corpus sharding (SURVEY §5.8/§7.8): the same API as
 ``BayesianBM25Scorer``, with the document axis of every index array
 sharded over a 1-D ``jax.sharding.Mesh`` and retrieval running as
-per-shard scoring + local top-k + all_gather merge over ICI. The
+per-shard scoring + local top-k + all_gather merge across devices. The
 reference has no distributed layer at all (single-process NumPy); this
 class makes the sharding plumbing of ``parallel/sharded.py`` a drop-in
 scorer rather than raw functions.

@@ -73,7 +73,7 @@ def main():
     # transform -> masked top-k + count). The round-1 implementation did a
     # top-k retrieve AND a dense pass; block skipping cannot beat the
     # single pass here because the frequent-term matmul computes every
-    # doc's score regardless (MXU work is data-independent under XLA) —
+    # doc's score regardless (matmul work is data-independent under XLA) —
     # the bounds' pruned-frac above quantifies what a gather-based skip
     # could save on the compare path only (see docs/design.md §8).
     import time

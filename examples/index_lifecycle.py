@@ -1,5 +1,5 @@
 """Index lifecycle demo: incremental adds, tombstone deletes, checkpoint
-round-trip, and streaming retrieval (TPU-native extension example —
+round-trip, and streaming retrieval (extension example —
 the reference supports add_documents only; reference scorer lifecycle:
 /root/reference/bayesian_bm25/scorer.py:469-492)."""
 

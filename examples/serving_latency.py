@@ -1,5 +1,5 @@
 """End-to-end serving demo: raw text in -> calibrated results out, with
-throughput/latency statistics (TPU-native extension example)."""
+throughput/latency statistics (extension example)."""
 
 import time
 

@@ -1,29 +1,38 @@
-"""Multi-chip document-sharded retrieval (TPU-native extension example).
+"""Multi-device document-sharded retrieval.
 
-Defaults to an 8-device virtual CPU mesh so it runs anywhere; set
-BB25_EXAMPLE_REAL_DEVICES=1 to use the real accelerator mesh instead.
+Runs on the real devices when JAX sees at least 2, and on an 8-device
+virtual CPU mesh only when ``--virtual-cpu`` asks for it. Prints which
+one it ran on.
+
+    python examples/sharded_retrieval.py [--virtual-cpu]
 """
 
 import os
+import sys
 
-if not os.environ.get("BB25_EXAMPLE_REAL_DEVICES"):
+VIRTUAL = "--virtual-cpu" in sys.argv
+if VIRTUAL:
+    os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "")
         + " --xla_force_host_platform_device_count=8"
     ).strip()
 
-import numpy as np
+import jax  # noqa: E402
 
-import jax
+if not VIRTUAL and len(jax.devices()) < 2:
+    sys.exit(f"only {len(jax.devices())} device(s); sharding needs at "
+             "least 2 (pass --virtual-cpu for an 8-device CPU mesh)")
 
-if not os.environ.get("BB25_EXAMPLE_REAL_DEVICES"):
-    jax.config.update("jax_platforms", "cpu")
+import numpy as np  # noqa: E402
 
-from bayesian_bm25_tpu.engine import index as eidx
-from bayesian_bm25_tpu.parallel import sharded
+from bayesian_bm25_tpu.engine import index as eidx  # noqa: E402
+from bayesian_bm25_tpu.parallel import sharded  # noqa: E402
 
 n_dev = len(jax.devices())
-print(f"devices: {n_dev} x {jax.devices()[0].platform}")
+kind = ("virtual CPU mesh" if VIRTUAL
+        else f"real devices ({jax.devices()[0].device_kind})")
+print(f"devices: {n_dev} x {jax.devices()[0].platform} — {kind}")
 
 rng = np.random.default_rng(0)
 corpus = [[f"t{t}" for t in rng.integers(0, 500, 40)] for _ in range(64)]
@@ -51,8 +60,8 @@ print(f"\npsum corpus stats: N={int(n)} avgdl={float(avgdl):.2f} "
       f"df checksum={int(np.asarray(df).sum())}")
 
 # --- the user-facing form: ShardedBayesianBM25Scorer --------------------
-# Same API as the single-chip scorer; index arrays are document-sharded
-# over the mesh, retrieval merges per-shard top-k over ICI collectives.
+# Same API as the single-device scorer; index arrays are document-sharded
+# over the mesh, retrieval merges per-shard top-k with collectives.
 from bayesian_bm25_tpu import ShardedBayesianBM25Scorer  # noqa: E402
 
 scorer = ShardedBayesianBM25Scorer(mesh=mesh, base_rate="auto")

@@ -1,5 +1,5 @@
 """Vector similarity calibration with the likelihood-ratio framework
-(TPU-native extension example: VPT + density priors)."""
+(extension example: VPT + density priors)."""
 
 import numpy as np
 

@@ -1,4 +1,4 @@
-// bb25_native: host-side hot loops for the TPU BM25 engine.
+// bb25_native: host-side hot loops for the BM25 engine.
 //
 // Implements the tokenizer (lowercase + [a-z0-9]+ extraction + stopword
 // filter + Porter stemmer) and the corpus builder (vocab construction +

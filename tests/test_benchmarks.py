@@ -241,8 +241,8 @@ class TestNoiseRegimeAttention:
     noise-regime data — where query features predict per-signal
     reliability — learned per-query attention weighting must beat the
     fixed Balanced weight, reproducing the reference's BEIR ordering
-    (reference README.md:433). 3-seed robustness runs live in
-    BENCHMARK_RESULTS.md; this pins one seed in CI at reduced scale."""
+    (reference README.md:433). 3-seed robustness runs come from
+    benchmarks/hybrid_beir.py; this pins one seed in CI at reduced scale."""
 
     def test_attention_beats_balanced_on_regime_data(self):
         from benchmarks.hybrid_beir import run_dataset
@@ -265,8 +265,8 @@ class TestHardFamilyOrderingGate:
     (round-3 VERDICT weak #4): Balanced > Convex, RRF > BM25 and
     Balanced >> Dense must hold — the reference's BEIR ordering
     (ref README.md:412-443). The statistically gated 3-seed study at
-    20k docs runs via benchmarks/ordering_study.py (results in
-    BENCHMARK_RESULTS.md); this pins one seed at CI scale, asserting
+    20k docs runs via benchmarks/ordering_study.py; this pins one seed
+    at CI scale, asserting
     only the pairs whose full-study margins dwarf seed noise."""
 
     def test_gate_pairs_one_seed(self):

@@ -9,8 +9,8 @@ transform — these tests pin its contract:
   change for exact-storage callers);
 * composes with approx and doc_mask.
 
-Ref intent: a TPU-native serving extension with no reference analogue
-(round-4 VERDICT next #7), opt-in like ``approx``.
+Ref intent: a serving extension with no reference analogue, opt-in
+like ``approx``.
 """
 
 import numpy as np
@@ -46,8 +46,7 @@ class TestCoarseTier:
         # per-query top-10 set overlap: coarse reorders only near-ties.
         # This 600-doc corpus bunches scores within the ~0.8% coarse
         # error, so agreement here is a LOWER bound on serving scale
-        # (50k-doc agreement is measured on the real chip and recorded
-        # in BENCHMARK_RESULTS.md).
+        # (chip_smoke.py reports the 50k-doc agreement on the GPU).
         overlaps = [
             len(set(ids_e[i]) & set(ids_c[i])) / 10 for i in range(len(qs))
         ]

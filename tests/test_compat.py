@@ -1,5 +1,5 @@
 """compat.install(): reference user code runs unchanged against the
-TPU implementation (virtual ``bayesian_bm25`` package in sys.modules,
+package's implementation (virtual ``bayesian_bm25`` package in sys.modules,
 mapping /root/reference/bayesian_bm25/__init__.py:11-55)."""
 
 import sys

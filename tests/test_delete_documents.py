@@ -1,6 +1,6 @@
 """delete_documents / restore_documents: tombstone lifecycle.
 
-TPU-native extension (the reference supports add_documents only):
+Extension (the reference supports add_documents only):
 tombstoned docs are excluded from every query path without an index
 rebuild, ids stay stable, and the mask composes with caller doc_mask,
 survives checkpoints, and extends across add_documents."""

@@ -1,5 +1,5 @@
 """BM25 engine tests: score parity with a brute-force oracle, tf counts,
-variants, query encoding, and XLA-vs-Pallas(interpret) agreement."""
+variants, and query encoding."""
 
 import numpy as np
 import pytest
@@ -106,19 +106,6 @@ class TestScoringParity:
         qids, qcnt = eidx.encode_queries(["the fox".split()], idx.vocab)
         scores, _ = scoring.score_all_xla(idx.term_ids, idx.weights, qids, qcnt)
         assert np.all(np.asarray(scores)[:, idx.n_docs:] == 0)
-
-    def test_pallas_interpret_matches_xla(self):
-        from bayesian_bm25_tpu.engine.pallas_bm25 import score_all_pallas
-
-        idx = eidx.build_index(CORPUS)
-        queries = ["quick fox".split(), "the dog".split(), ["mat"]]
-        qids, qcnt = eidx.encode_queries(queries, idx.vocab)
-        s_x, t_x = scoring.score_all_xla(idx.term_ids, idx.weights, qids, qcnt)
-        s_p, t_p = score_all_pallas(
-            idx.term_ids, idx.weights, qids, qcnt, interpret=True
-        )
-        np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_x), rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(t_p), np.asarray(t_x), rtol=1e-6)
 
 
 class TestEncodeQueries:

@@ -1,7 +1,7 @@
 """int8 impact storage: (hi, lo) int8 pair + per-doc scales.
 
 Scoring under ``storage="int8"`` runs two int8 x int8 -> int32 dot
-passes (native MXU int8 on TPU, 2x bf16 throughput) with the per-doc
+passes (integer GEMMs, exact int32 accumulation) with the per-doc
 scales applied in the epilogue: score_d = s_d*hidot_d + s2_d*lodot_d.
 Error class: ABSOLUTE per doc row (<= ~amax_d/64500 per element), so
 score-relative error stays ~1e-4 even for docs whose matched weights

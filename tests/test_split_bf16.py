@@ -111,7 +111,7 @@ class TestBf16Tolerance:
         # threshold behavior is by padded doc count; patch the constant
         # down instead of building 262k docs. Past the threshold the
         # auto storage is the int8 (hi, lo) pair: same bytes as single
-        # bf16, ~20x lower error, v5e speed parity (profile_int8.py).
+        # bf16, ~20x lower error.
         s2 = BayesianBM25Scorer()
         s2._SPLIT_INT8_MIN_DOCS = 64
         s2.index(small, show_progress=False)
@@ -127,10 +127,11 @@ class TestBf16Tolerance:
 
 
 class TestMatmulPrecisionKnob:
-    """matmul_precision is a TPU serving knob; on the CPU test backend
+    """matmul_precision is a serving knob; on the CPU test backend
     every setting computes identical f32 results, so these tests pin the
     API surface (validation, pass-through compile, cross-setting
-    agreement) rather than the TPU pass counts."""
+    agreement) rather than the GPU algorithms (chip_smoke.py measures
+    those on the card)."""
 
     def test_invalid_raises(self):
         with pytest.raises(ValueError, match="matmul_precision"):

@@ -1,6 +1,6 @@
 """Frequency-split index: exact score/tf parity with the single-table path.
 
-The split (MXU matmul for frequent terms + narrow compare tail) must be a
+The split (a matmul for frequent terms + narrow compare tail) must be a
 pure performance transform — scores and tf counts equal the doc-major
 compare path on every query."""
 
